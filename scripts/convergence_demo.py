@@ -1,9 +1,9 @@
 """Convergence-quality demo: both frameworks trained to convergence on a
-deterministic synthetic All_Beauty-shaped corpus (VERDICT r1 #8).
+deterministic synthetic All_Beauty-shaped corpus.
 
 The feasible proxy for the environment-blocked real-data north star
 (BASELINE.json Recall@10/NDCG@10 on All_Beauty — no dataset or pretrained
-weights exist on this host): generate a seeded corpus with learnable latent
+weights are available offline): generate a seeded corpus with learnable latent
 structure, train the ITEM stage and the JOINT stage to convergence in BOTH
 frameworks from identical random init on identical batches, and compare the
 final quality metrics each framework's own evaluator reports:
@@ -55,7 +55,7 @@ torch.cuda.set_device = _orig
 from models.qformer_utils import QFormerForItemRepresentation  # noqa: E402
 from training.item_qformer_training import QFormerLoss  # noqa: E402
 
-from unirec_tpu.configs import (  # noqa: E402
+from unirec.configs import (  # noqa: E402
     ItemQFormerConfig,
     JointModelConfig,
     LoRAConfig,
@@ -64,14 +64,14 @@ from unirec_tpu.configs import (  # noqa: E402
     Qwen3Config,
     TrainConfig,
 )
-from unirec_tpu.data.cache import FieldEmbeddingCache  # noqa: E402
-from unirec_tpu.data.tokenizer import HashTokenizer  # noqa: E402
-from unirec_tpu.models.item_qformer import ItemQFormer  # noqa: E402
-from unirec_tpu.train.common import TrainState, make_optimizer  # noqa: E402
-from unirec_tpu.train.item_qformer import make_train_step  # noqa: E402
-from unirec_tpu.train.joint import JointDataset, JointTrainer  # noqa: E402
-from unirec_tpu.utils.params import prune_to_structure  # noqa: E402
-from unirec_tpu.utils.torch_convert import (  # noqa: E402
+from unirec.data.cache import FieldEmbeddingCache  # noqa: E402
+from unirec.data.tokenizer import HashTokenizer  # noqa: E402
+from unirec.models.item_qformer import ItemQFormer  # noqa: E402
+from unirec.train.common import TrainState, make_optimizer  # noqa: E402
+from unirec.train.item_qformer import make_train_step  # noqa: E402
+from unirec.train.joint import JointDataset, JointTrainer  # noqa: E402
+from unirec.utils.params import prune_to_structure  # noqa: E402
+from unirec.utils.torch_convert import (  # noqa: E402
     convert_item_qformer,
     convert_joint_model,
 )
@@ -235,7 +235,7 @@ def item_stage(cache, users, fields, masks, steps=400, batch=64, lr=1e-3,
         "steps": steps,
         "reference": {"val_recon_mse": round(t_mse, 4),
                       "val_cosine": round(t_cos, 4)},
-        "unirec_tpu": {"val_recon_mse": round(f_mse, 4),
+        "unirec": {"val_recon_mse": round(f_mse, 4),
                        "val_cosine": round(f_cos, 4)},
     }
 
@@ -253,9 +253,9 @@ def user_stage(users, fields, masks, steps=300, batch=32, lr=1e-3, seed=3):
     learnable from the history."""
     from training.user_qformer_training import UserQFormer as RefUserQFormer
 
-    from unirec_tpu.configs import UserQFormerConfig
-    from unirec_tpu.models.user_qformer import UserQFormer as FlaxUserQFormer
-    from unirec_tpu.utils.torch_convert import convert_user_qformer
+    from unirec.configs import UserQFormerConfig
+    from unirec.models.user_qformer import UserQFormer as FlaxUserQFormer
+    from unirec.utils.torch_convert import convert_user_qformer
 
     K_PRED, L_ITEMS = 4, 8  # tokens per item; max history items in a window
     rng = np.random.RandomState(seed)
@@ -363,7 +363,7 @@ def user_stage(users, fields, masks, steps=300, batch=32, lr=1e-3, seed=3):
         "predict_zero_mse": round(base, 4),
         "reference": {"val_pred_mse": round(t_mse, 4),
                       "val_token_cosine": round(t_cos, 4)},
-        "unirec_tpu": {"val_pred_mse": round(f_mse, 4),
+        "unirec": {"val_pred_mse": round(f_mse, 4),
                        "val_token_cosine": round(f_cos, 4)},
     }
 
@@ -448,7 +448,7 @@ def joint_stage(cache, emb_dict, item_dict, users, steps=800, batch=8,
     qc = Qwen3Config(
         vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=FFN,
         num_hidden_layers=LAYERS, num_attention_heads=HEADS,
-        num_key_value_heads=2, head_dim=16, flash_attention=False,
+        num_key_value_heads=2, head_dim=16,
     )
     icfg = ItemQFormerConfig(
         hidden_size=HIDDEN, num_hidden_layers=LAYERS,
@@ -546,7 +546,7 @@ def joint_stage(cache, emb_dict, item_dict, users, steps=800, batch=8,
         "test_users": len(test_ds),
         "untrained_init": init_metrics,
         "reference": t_metrics,
-        "unirec_tpu": f_metrics,
+        "unirec": f_metrics,
     }
 
 
@@ -558,10 +558,10 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument(
         "--scaled", action="store_true",
-        help="VERDICT r2 next #9: one notch up — 2k items / 1k users, the "
-        "production field count (F=14) and item query-token count (K=32); "
-        "step counts scaled with the corpus.  ~10x the default's runtime "
-        "on this 1-core host (the torch reference side dominates).",
+        help="one notch up — 2k items / 1k users, the production field "
+        "count (F=14) and item query-token count (K=32); step counts "
+        "scaled with the corpus.  ~10x the default's runtime (the torch "
+        "reference side dominates).",
     )
     args = p.parse_args()
     steps = {"item": 400, "user": 300, "joint": 800}

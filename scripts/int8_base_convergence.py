@@ -1,9 +1,8 @@
 """Convergence-quality gate for `train joint --int8-base` (QLoRA-style).
 
 `--int8-base` changes training numerics (the frozen base's projections run
-W8A8 in the forward with an STE backward — ops/int8_ste.py), so the speed
-headline (73.5 vs 67.4 samples/s, BASELINE.md) needs the same kind of
-quality evidence QLoRA itself shipped: train the SAME joint model on the
+W8A8 in the forward with an STE backward — ops/int8_ste.py), so any speed
+claim for it needs the same kind of quality evidence QLoRA itself shipped: train the SAME joint model on the
 SAME synthetic corpus (scripts/convergence_demo.py) with and without
 int8_base from identical init/seed, and compare the final ranking metrics
 each run's evaluator reports (MRR / Recall@10 / NDCG@10 over 100-candidate
@@ -26,7 +25,7 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from unirec_tpu.configs import (  # noqa: E402
+from unirec.configs import (  # noqa: E402
     ItemQFormerConfig,
     JointModelConfig,
     LoRAConfig,
@@ -35,8 +34,8 @@ from unirec_tpu.configs import (  # noqa: E402
     Qwen3Config,
     TrainConfig,
 )
-from unirec_tpu.data.tokenizer import HashTokenizer  # noqa: E402
-from unirec_tpu.train.joint import JointDataset, JointTrainer  # noqa: E402
+from unirec.data.tokenizer import HashTokenizer  # noqa: E402
+from unirec.train.joint import JointDataset, JointTrainer  # noqa: E402
 
 # the convergence demo's corpus generator (torch/reference imports happen at
 # module import; only make_corpus and the shape constants are used here)
@@ -57,7 +56,7 @@ def run(int8_base: bool, cache, emb_dict, item_dict, users, steps=800,
     qc = Qwen3Config(
         vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=FFN,
         num_hidden_layers=LAYERS, num_attention_heads=HEADS,
-        num_key_value_heads=2, head_dim=16, flash_attention=False,
+        num_key_value_heads=2, head_dim=16,
     )
     icfg = ItemQFormerConfig(
         hidden_size=HIDDEN, num_hidden_layers=LAYERS,

@@ -2,7 +2,7 @@
 reference's save_attention hooks (reference: models/qformer.py:147-159).
 
 The reference exposes attention maps by mutating module state
-(``save_attention=True`` → ``get_attention_map()``); the TPU rebuild's
+(``save_attention=True`` → ``get_attention_map()``); this rebuild's
 functional equivalent sows the probs as flax intermediates.  This test runs
 BOTH on identical weights/inputs and compares the cross-attention maps
 elementwise.
@@ -35,11 +35,11 @@ from models.qformer import BertConfig, BertModel  # noqa: E402 (oracle)
 
 import jax.numpy as jnp  # noqa: E402
 
-from unirec_tpu.configs import ItemQFormerConfig, QFormerConfig  # noqa: E402
-from unirec_tpu.models.item_qformer import ItemQFormer  # noqa: E402
-from unirec_tpu.models.qformer import QFormerModel  # noqa: E402
-from unirec_tpu.utils.debug import capture_attention_maps  # noqa: E402
-from unirec_tpu.utils.torch_convert import convert_qformer_model  # noqa: E402
+from unirec.configs import ItemQFormerConfig, QFormerConfig  # noqa: E402
+from unirec.models.item_qformer import ItemQFormer  # noqa: E402
+from unirec.models.qformer import QFormerModel  # noqa: E402
+from unirec.utils.debug import capture_attention_maps  # noqa: E402
+from unirec.utils.torch_convert import convert_qformer_model  # noqa: E402
 
 HIDDEN, LAYERS, HEADS, FFN, WIDTH, K = 64, 4, 4, 128, 48, 8
 

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from unirec_tpu.train.callbacks import BestMetricTracker
+from unirec.train.callbacks import BestMetricTracker
 
 
 def _tracker(tmp_path, strategy, saves):
@@ -77,11 +77,11 @@ def test_joint_train_steps_hook(eight_devices):
     # build a minimal dataset inline instead of reusing the fixture machinery
     import jax.numpy as jnp
 
-    from unirec_tpu.configs import (LoRAConfig, MeshConfig, OptimizerConfig,
+    from unirec.configs import (LoRAConfig, MeshConfig, OptimizerConfig,
                                     TrainConfig)
-    from unirec_tpu.data.cache import FieldEmbeddingCache
-    from unirec_tpu.data.tokenizer import HashTokenizer
-    from unirec_tpu.train.joint import JointDataset, JointTrainer
+    from unirec.data.cache import FieldEmbeddingCache
+    from unirec.data.tokenizer import HashTokenizer
+    from unirec.train.joint import JointDataset, JointTrainer
 
     rng = np.random.RandomState(0)
     n = 16

@@ -6,16 +6,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from unirec_tpu.configs import (
+from unirec.configs import (
     ItemQFormerConfig,
     MeshConfig,
     OptimizerConfig,
     TrainConfig,
 )
-from unirec_tpu.data.cache import FieldEmbeddingCache
-from unirec_tpu.train.common import TrainState, make_optimizer
-from unirec_tpu.train.item_qformer import ItemQFormerTrainer, build_triplet_pairs
-from unirec_tpu.utils.checkpoint import (
+from unirec.data.cache import FieldEmbeddingCache
+from unirec.train.common import TrainState, make_optimizer
+from unirec.train.item_qformer import ItemQFormerTrainer, build_triplet_pairs
+from unirec.utils.checkpoint import (
     load_checkpoint,
     restore_config,
     save_checkpoint,
@@ -65,7 +65,7 @@ def test_resume_reproduces_training(tmp_path):
 
     # reload and continue identically (branch B): fresh trainer + state
     # template, then structural restore
-    from unirec_tpu.utils.checkpoint import restore_train_state
+    from unirec.utils.checkpoint import restore_train_state
 
     trainer_b, _, _ = _setup()
     template = trainer_b.init_state()
@@ -103,7 +103,7 @@ def test_resume_grad_accum_mismatch_fails_fast(tmp_path):
     two values both >1, silently mis-restores the accumulation counters)."""
     import pytest
 
-    from unirec_tpu.utils.checkpoint import (
+    from unirec.utils.checkpoint import (
         check_grad_accum,
         read_meta,
         resume_train_state,

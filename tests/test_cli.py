@@ -1,5 +1,5 @@
 """CLI integration: the full pipeline on tiny fixtures through the real
-entry points (python -m unirec_tpu ...).
+entry points (python -m unirec ...).
 
 data -> precompute -> item-qformer train -> evaluate -> tokens -> embed.
 """
@@ -13,10 +13,10 @@ import os
 import numpy as np
 import pytest
 
-from unirec_tpu.cli.candidate_embeddings import main as embed_main
-from unirec_tpu.cli.data_pipeline import main as data_main
-from unirec_tpu.cli.generate_all_item_embeddings import main as tokens_main
-from unirec_tpu.cli.train_cli import main as train_main
+from unirec.cli.candidate_embeddings import main as embed_main
+from unirec.cli.data_pipeline import main as data_main
+from unirec.cli.generate_all_item_embeddings import main as tokens_main
+from unirec.cli.train_cli import main as train_main
 
 N_ITEMS = 40
 
@@ -166,7 +166,7 @@ def test_mwne_cli(tmp_path):
     assert ck["encoder_config"]["embedding_dim"] == 64
     assert "fourier_weight" in ck["encoder_state_dict"]
 
-    from unirec_tpu.encoders.backends import MWNENumberBackend
+    from unirec.encoders.backends import MWNENumberBackend
 
     backend = MWNENumberBackend.from_reference_checkpoint(pth)
     out = backend.encode([1.5, -2.0, 100.0])
@@ -176,7 +176,7 @@ def test_mwne_cli(tmp_path):
 
 def test_module_dispatcher_help():
     r = subprocess.run(
-        [sys.executable, "-m", "unirec_tpu", "--help"],
+        [sys.executable, "-m", "unirec", "--help"],
         capture_output=True, text=True,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         env={**os.environ, "JAX_PLATFORMS": "cpu"},
@@ -196,7 +196,7 @@ def test_tokens_cli_per_item_fallback(pipeline_dir, monkeypatch):
     if not os.path.exists(d / "cache"):
         test_train_and_tokens_cli(pipeline_dir)
 
-    from unirec_tpu.inference import qformer_inference as qi
+    from unirec.inference import qformer_inference as qi
 
     orig = qi.QFormerInference.query_tokens_from_embeddings
     calls = {"n": 0}
@@ -221,13 +221,13 @@ def test_tokens_cli_per_item_fallback(pipeline_dir, monkeypatch):
 
 def test_tokens_cli_hbm_downshift(pipeline_dir, monkeypatch):
     """An OOM-shaped failure must halve the batch size (sticky) and retry —
-    the TPU analog of the reference's GPU memory probe
+    the analog of the reference's GPU memory probe
     (reference: generate_all_item_embeddings.py:191-211)."""
     d = pipeline_dir
     if not os.path.exists(d / "cache"):
         test_train_and_tokens_cli(pipeline_dir)
 
-    from unirec_tpu.inference import qformer_inference as qi
+    from unirec.inference import qformer_inference as qi
 
     orig = qi.QFormerInference.query_tokens_from_embeddings
     seen = []
@@ -258,7 +258,7 @@ def test_tokens_cli_hbm_downshift(pipeline_dir, monkeypatch):
 
 def test_full_pipeline_raw_jsonl_to_recommendation(pipeline_dir):
     """One chain through every stage on All_Beauty-shaped fixtures
-    (VERDICT r1 #10): raw meta/review JSONL + interactions ->
+   : raw meta/review JSONL + interactions ->
     data CLIs -> precompute -> item-qformer train -> tokens ->
     candidate embeddings -> user-qformer train -> joint train (tiny) ->
     serve-CLI Recommender -> a ranked recommendation."""
@@ -320,9 +320,9 @@ def test_full_pipeline_raw_jsonl_to_recommendation(pipeline_dir):
     # resume restores params + opt state + step and keeps training
     assert train_main(joint_args + ["--resume"]) == 0
 
-    # serving: assemble the recommender exactly as `python -m unirec_tpu
+    # serving: assemble the recommender exactly as `python -m unirec
     # serve` would, and produce a recommendation from a raw history
-    from unirec_tpu.cli.serve_cli import build_recommender, parse_args
+    from unirec.cli.serve_cli import build_recommender, parse_args
 
     rec = build_recommender(parse_args([
         "--qformer-checkpoint", str(d / "iq_ckpt"),
@@ -357,7 +357,7 @@ def test_full_pipeline_raw_jsonl_to_recommendation(pipeline_dir):
 
 def test_tokens_cli_dp_sharded_sweep(pipeline_dir):
     """--dp 8 shards the token-generation sweep over the device mesh; output
-    must match an explicit --dp 1 single-device sweep (the v5e-8 headline
+    must match an explicit --dp 1 single-device sweep (the multi-device
     path through the real CLI entry point — the default tokens.pkl is NOT a
     valid baseline because --dp defaults to all devices)."""
     d = pipeline_dir
@@ -400,7 +400,7 @@ def test_export_pth_cli(pipeline_dir):
     assert set(ck) == {"model_state_dict", "config", "field_names"}
     assert ck["config"].query_length == 4
 
-    from unirec_tpu.inference.qformer_inference import QFormerInference
+    from unirec.inference.qformer_inference import QFormerInference
 
     a = QFormerInference(ckpt, batch_size=8)
     b = QFormerInference(pth, batch_size=8)
@@ -422,9 +422,9 @@ def test_export_pth_user_cli(tmp_path):
     (training/user_qformer_training.py:218-228)."""
     torch = pytest.importorskip("torch")
 
-    from unirec_tpu.configs import TrainConfig, UserQFormerConfig
-    from unirec_tpu.train.user_qformer import UserQFormerTrainer
-    from unirec_tpu.utils.checkpoint import save_checkpoint
+    from unirec.configs import TrainConfig, UserQFormerConfig
+    from unirec.train.user_qformer import UserQFormerTrainer
+    from unirec.utils.checkpoint import save_checkpoint
 
     cfg = UserQFormerConfig(
         hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
@@ -508,7 +508,7 @@ def test_joint_pp_cli(pipeline_dir):
     assert os.path.exists(os.path.join(ckpt, "state"))
     # the saved tree is the REGULAR joint layout (merged back from pp):
     # it reloads through the ordinary checkpoint loader
-    from unirec_tpu.utils.checkpoint import load_checkpoint
+    from unirec.utils.checkpoint import load_checkpoint
 
     tree, meta = load_checkpoint(ckpt)
     assert "base_model" in tree["params"] and "qformer" in tree["params"]
@@ -540,7 +540,7 @@ def test_users_cli(pipeline_dir):
     if not os.path.exists(d / "qwen_emb32.json"):
         test_full_pipeline_raw_jsonl_to_recommendation(pipeline_dir)
 
-    from unirec_tpu.cli.user_embeddings import main as users_main
+    from unirec.cli.user_embeddings import main as users_main
 
     base = [
         "--qformer-checkpoint", str(d / "iq_ckpt"),
@@ -609,7 +609,7 @@ def test_export_pretrained_cli(pipeline_dir):
 
     from transformers import Qwen3Config as HFQwen3Config, Qwen3Model
 
-    from unirec_tpu.utils.checkpoint import read_meta
+    from unirec.utils.checkpoint import read_meta
 
     qc = read_meta(str(d / "joint_ckpt" / "latest_model"))["qwen_config"]
     base = Qwen3Model(HFQwen3Config(

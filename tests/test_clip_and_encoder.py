@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unirec_tpu.configs import FieldSchema, MWNEConfig
-from unirec_tpu.encoders.backends import (
+from unirec.configs import FieldSchema, MWNEConfig
+from unirec.encoders.backends import (
     HashImageBackend,
     HashTextBackend,
     MWNENumberBackend,
     Qwen3TextBackend,
 )
-from unirec_tpu.encoders.item_encoder import ItemEncoder
-from unirec_tpu.models.clip import (
+from unirec.encoders.item_encoder import ItemEncoder
+from unirec.models.clip import (
     CLIPTextConfig,
     CLIPTextTower,
     CLIPVisionConfig,
@@ -158,7 +158,7 @@ def test_item_encoder_determinism():
 
 
 def test_qwen3_text_backend_smoke():
-    from unirec_tpu.configs import tiny_qwen3_config
+    from unirec.configs import tiny_qwen3_config
 
     backend = Qwen3TextBackend(
         tiny_qwen3_config(max_position_embeddings=64),
@@ -174,7 +174,7 @@ def test_qwen3_text_backend_smoke():
 def test_clip_image_backend_with_pil_images():
     from PIL import Image
 
-    from unirec_tpu.encoders.backends import CLIPImageBackend
+    from unirec.encoders.backends import CLIPImageBackend
 
     backend = CLIPImageBackend(VC, batch_size=2, dtype=jnp.float32)
     imgs = [

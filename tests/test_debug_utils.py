@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unirec_tpu.utils.debug import eager_mode, nan_checks
+from unirec.utils.debug import eager_mode, nan_checks
 
 
 def test_nan_checks_trip_on_nan_and_restore_config():
@@ -28,8 +28,8 @@ def test_nan_checks_pass_clean_model_forward():
     """A real model forward under the sanitizer: the Q-Former's additive
     -1e9 masks must not trip the Inf check (they are large-finite by
     design — models/qformer.py)."""
-    from unirec_tpu.configs import ItemQFormerConfig
-    from unirec_tpu.models.item_qformer import ItemQFormer
+    from unirec.configs import ItemQFormerConfig
+    from unirec.models.item_qformer import ItemQFormer
 
     cfg = ItemQFormerConfig(
         hidden_size=32, num_hidden_layers=2, num_attention_heads=4,

@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from unirec_tpu.configs import OptimizerConfig
-from unirec_tpu.train.common import TrainState, flush_grad_accum, make_optimizer
+from unirec.configs import OptimizerConfig
+from unirec.train.common import TrainState, flush_grad_accum, make_optimizer
 
 CFG = OptimizerConfig(
     learning_rate=1e-2, gradient_accumulation_steps=4,

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unirec_tpu.configs import (
+from unirec.configs import (
     ItemQFormerConfig,
     JointModelConfig,
     LoRAConfig,
@@ -14,15 +14,15 @@ from unirec_tpu.configs import (
     TrainConfig,
     tiny_qwen3_config,
 )
-from unirec_tpu.data.cache import FieldEmbeddingCache
-from unirec_tpu.data.tokenizer import HashTokenizer
-from unirec_tpu.models.joint import (
+from unirec.data.cache import FieldEmbeddingCache
+from unirec.data.tokenizer import HashTokenizer
+from unirec.models.joint import (
     MultiModalQwenEmbedding,
     construct_input_text,
     history_token_strings,
 )
-from unirec_tpu.train.joint import JointDataset, JointTrainer
-from unirec_tpu.utils.params import lora_trainable_mask
+from unirec.train.joint import JointDataset, JointTrainer
+from unirec.utils.params import lora_trainable_mask
 
 QWEN = tiny_qwen3_config(max_position_embeddings=128)
 F, FD = 4, 32
@@ -266,15 +266,16 @@ def test_remat_matches_no_remat(joint_setup):
     assert any(np.abs(np.asarray(l)).max() > 0 for l in leaves)
 
 
-def test_flash_vjp_dp_shard_map_matches_single_device(joint_setup,
-                                                      eight_devices):
-    """flash_vjp_attention + dp mesh routes through the explicit shard_map
-    step (GSPMD cannot partition pallas_call).  With dropout off, one dp=4
-    step must match the single-device XLA-attention step: pmean of
-    per-shard (loss, grads) over per-sample InfoNCE pools is exactly the
-    full-batch mean."""
-    import dataclasses
-
+@pytest.mark.parametrize("dp,tp,int8_base", [
+    (4, 1, False), (2, 2, False), (8, 1, False), (4, 1, True),
+])
+def test_dp_step_matches_single_device(joint_setup, eight_devices, dp, tp,
+                                       int8_base):
+    """One train step on a dp (x tp) mesh must match the single-device
+    step on the same global batch: with dropout off, the mean of per-sample
+    InfoNCE losses over shards is exactly the full-batch mean.  int8_base
+    on a dp mesh takes the explicit shard_map path
+    (parallel/mesh.dp_shard_map_jit)."""
     ds = joint_setup
     ds.item_emb_dim = QWEN.hidden_size
     rng2 = np.random.RandomState(1)
@@ -282,41 +283,42 @@ def test_flash_vjp_dp_shard_map_matches_single_device(joint_setup,
         k: rng2.randn(QWEN.hidden_size).astype(np.float32).tolist()
         for k in ds.item_emb_dict
     }
-    qwen_flash = dataclasses.replace(QWEN, flash_vjp_attention=True)
 
-    def make(qwen, dp):
+    def make(dp, tp):
         return JointTrainer(
-            qwen, QF, JC, lora=LoRAConfig(r=2, dropout=0.0),
+            QWEN, QF, JC, lora=LoRAConfig(r=2, dropout=0.0),
             train_config=TrainConfig(
                 batch_size=8, optimizer=OptimizerConfig(learning_rate=5e-3),
-                mesh=MeshConfig(dp=dp, tp=1), seed=1,
+                mesh=MeshConfig(dp=dp, tp=tp), seed=1,
             ),
+            int8_base=int8_base,
         )
 
-    t_ref = make(QWEN, 1)
-    t_flash = make(qwen_flash, 4)
-    assert t_flash._flash_dp
+    t_ref = make(1, 1)
+    t_dp = make(dp, tp)
+    assert t_dp._kernel_dp == int8_base
     s_ref = t_ref.init_state()
-    s_flash = t_flash.init_state()
+    s_dp = t_dp.init_state()
     batch = {k: jnp.asarray(v) for k, v in ds.batch(list(range(8))).items()}
     s_ref, m_ref = t_ref._train_step(s_ref, batch)
-    s_flash, m_flash = t_flash._train_step(s_flash, batch)
-    np.testing.assert_allclose(float(m_flash["loss"]), float(m_ref["loss"]),
+    s_dp, m_dp = t_dp._train_step(s_dp, batch)
+    np.testing.assert_allclose(float(m_dp["loss"]), float(m_ref["loss"]),
                                atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(float(m_dp["grad_norm"]),
+                               float(m_ref["grad_norm"]), rtol=1e-4)
     leaf_r = np.asarray(
         s_ref.params["base_model"]["layers_0"]["self_attn"]["q_proj"]["lora_b"]
     )
-    leaf_f = np.asarray(
-        s_flash.params["base_model"]["layers_0"]["self_attn"]["q_proj"]["lora_b"]
+    leaf_d = np.asarray(
+        s_dp.params["base_model"]["layers_0"]["self_attn"]["q_proj"]["lora_b"]
     )
     assert np.abs(leaf_r).max() > 0
-    np.testing.assert_allclose(leaf_f, leaf_r, atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(leaf_d, leaf_r, atol=1e-5, rtol=1e-4)
 
 
 def test_dp_eval_shard_map_matches_single_device(joint_setup, eight_devices):
-    """dp-only meshes evaluate through an explicit shard_map (the
-    deterministic forward can contain pallas_calls, which GSPMD cannot
-    partition); metrics must match the single-device GSPMD-jit eval."""
+    """dp-only meshes evaluate through an explicit shard_map; metrics must
+    match the single-device jit eval."""
     ds = joint_setup
     ds.item_emb_dim = QWEN.hidden_size
     rng2 = np.random.RandomState(1)
@@ -342,16 +344,14 @@ def test_dp_eval_shard_map_matches_single_device(joint_setup, eight_devices):
         np.testing.assert_allclose(ev4[k], v, atol=1e-6, err_msg=k)
 
 
-def test_flash_vjp_refuses_tp(eight_devices):
-    import dataclasses
-
-    qwen_flash = dataclasses.replace(QWEN, flash_vjp_attention=True)
+def test_int8_base_refuses_tp(eight_devices):
     with pytest.raises(ValueError, match="tp>1"):
         JointTrainer(
-            qwen_flash, QF, JC, lora=LoRAConfig(r=2),
+            QWEN, QF, JC, lora=LoRAConfig(r=2),
             train_config=TrainConfig(
                 batch_size=8, mesh=MeshConfig(dp=4, tp=2),
             ),
+            int8_base=True,
         )
 
 

@@ -1,4 +1,4 @@
-"""Grouped LoRA overlay (LoRAConfig.grouped, BASELINE.md round 9).
+"""Grouped LoRA overlay (LoRAConfig.grouped).
 
 The grouped path replaces per-projection lora_a matmuls + dropout draws
 with one shared draw and one concatenated matmul per input-sharing group
@@ -19,8 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unirec_tpu.configs import LoRAConfig, tiny_qwen3_config
-from unirec_tpu.models.qwen3 import Qwen3Model
+from unirec.configs import LoRAConfig, tiny_qwen3_config
+from unirec.models.qwen3 import Qwen3Model
 
 
 def _make(grouped, dropout):

@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from unirec_tpu.configs import MWNEConfig
-from unirec_tpu.models.mwne import (
+from unirec.configs import MWNEConfig
+from unirec.models.mwne import (
     GeoCoordinateEncoder,
     MathematicalEncoder,
     NormalizedMathematicalEncoder,
@@ -18,7 +18,7 @@ from unirec_tpu.models.mwne import (
     sinusoidal_position_encoding,
     timestamp_features,
 )
-from unirec_tpu.train.mwne import MWNETrainer, spearman_distance_correlation
+from unirec.train.mwne import MWNETrainer, spearman_distance_correlation
 
 CFG = MWNEConfig(embedding_dim=64, num_frequencies=16)
 

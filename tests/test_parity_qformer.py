@@ -1,7 +1,7 @@
 """Numerical parity: Flax Q-Former vs the PyTorch reference implementation.
 
 Copies random-initialized torch weights into the Flax models via
-unirec_tpu.utils.torch_convert and compares forward activations to tight
+unirec.utils.torch_convert and compares forward activations to tight
 tolerance (BASELINE.json north-star: "output embeddings match the PyTorch/HF
 reference to numerical tolerance").  Uses the reference strictly as a test
 oracle; skipped when the reference tree or torch is unavailable.
@@ -37,10 +37,10 @@ from models.qformer import BertConfig, BertModel  # noqa: E402  (reference oracl
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from unirec_tpu.configs import ItemQFormerConfig, QFormerConfig  # noqa: E402
-from unirec_tpu.models.item_qformer import ItemQFormer  # noqa: E402
-from unirec_tpu.models.qformer import QFormerModel  # noqa: E402
-from unirec_tpu.utils.torch_convert import (  # noqa: E402
+from unirec.configs import ItemQFormerConfig, QFormerConfig  # noqa: E402
+from unirec.models.item_qformer import ItemQFormer  # noqa: E402
+from unirec.models.qformer import QFormerModel  # noqa: E402
+from unirec.utils.torch_convert import (  # noqa: E402
     convert_item_qformer,
     convert_qformer_model,
 )
@@ -243,8 +243,8 @@ def test_lm_head_model_parity():
     """BertLMHeadModel logits + label-smoothed loss vs QFormerLMHeadModel."""
     from models.qformer import BertLMHeadModel
 
-    from unirec_tpu.models.qformer import QFormerLMHeadModel
-    from unirec_tpu.utils.torch_convert import convert_qformer_lm_model
+    from unirec.models.qformer import QFormerLMHeadModel
+    from unirec.utils.torch_convert import convert_qformer_lm_model
 
     cfg, _ = make_torch_bert()
     torch.manual_seed(4)
@@ -408,11 +408,11 @@ def test_generate_parity_vs_hf():
 
     from models.qformer import BertLMHeadModel
 
-    from unirec_tpu.models.qformer_decode import (
+    from unirec.models.qformer_decode import (
         kv_cached_beam_generate,
         kv_cached_greedy_generate,
     )
-    from unirec_tpu.utils.torch_convert import convert_qformer_lm_model
+    from unirec.utils.torch_convert import convert_qformer_lm_model
 
     class GenBert(BertLMHeadModel, GenerationMixin):
         pass

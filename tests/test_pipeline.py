@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unirec_tpu.configs import LoRAConfig, tiny_qwen3_config
-from unirec_tpu.models.qwen3 import Qwen3Model, mean_pool
-from unirec_tpu.parallel.pipeline import (
+from unirec.configs import LoRAConfig, tiny_qwen3_config
+from unirec.models.qwen3 import Qwen3Model, mean_pool
+from unirec.parallel.pipeline import (
     PipelinedQwen3,
     make_pp_mesh,
     merge_layer_params,
@@ -23,7 +23,7 @@ from unirec_tpu.parallel.pipeline import (
 
 def _setup(pp, dp, layers=4, lora=None, batch=8, seq=16):
     cfg = tiny_qwen3_config(
-        num_hidden_layers=layers, flash_attention=False
+        num_hidden_layers=layers
     )
     model = Qwen3Model(cfg, lora=lora)
     rng = np.random.RandomState(0)
@@ -138,27 +138,14 @@ def test_rejects_bad_layer_split(eight_devices):
         PipelinedQwen3(cfg, mesh)
 
 
-def test_rejects_flash_vjp_attention(eight_devices):
-    """The pp schedule drives layers with additive biases (pad_mask=None),
-    so flash_vjp_attention would silently never engage — must refuse."""
-    import dataclasses
-
-    cfg = dataclasses.replace(
-        tiny_qwen3_config(num_hidden_layers=8), flash_vjp_attention=True
-    )
-    mesh = make_pp_mesh(pp=4, dp=2)
-    with pytest.raises(ValueError, match="pipeline"):
-        PipelinedQwen3(cfg, mesh)
-
-
 # -- flagship composition: joint model with a pipelined backbone ------------
 
 
 def _joint_setup(pp=4, dp=2, batch=8):
-    from unirec_tpu.configs import ItemQFormerConfig, JointModelConfig
-    from unirec_tpu.models.joint import MultiModalQwenEmbedding
+    from unirec.configs import ItemQFormerConfig, JointModelConfig
+    from unirec.models.joint import MultiModalQwenEmbedding
 
-    qcfg = tiny_qwen3_config(num_hidden_layers=4, flash_attention=False)
+    qcfg = tiny_qwen3_config(num_hidden_layers=4)
     qf = ItemQFormerConfig(
         hidden_size=qcfg.hidden_size, num_hidden_layers=2,
         num_attention_heads=2, intermediate_size=64, num_query_tokens=2,
@@ -189,7 +176,7 @@ def _joint_setup(pp=4, dp=2, batch=8):
 
 
 def test_joint_pp_forward_matches_joint_model(eight_devices):
-    from unirec_tpu.parallel.pipeline import (
+    from unirec.parallel.pipeline import (
         joint_pp_forward,
         merge_joint_params,
         split_joint_params,
@@ -223,8 +210,8 @@ def test_joint_pp_infonce_train_step(eight_devices):
     pipeline: loss finite and decreasing over a few steps."""
     import optax
 
-    from unirec_tpu.ops.losses import info_nce_loss
-    from unirec_tpu.parallel.pipeline import (
+    from unirec.ops.losses import info_nce_loss
+    from unirec.parallel.pipeline import (
         joint_pp_forward,
         split_joint_params,
     )

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from unirec_tpu.data.tokenizer import HashTokenizer
-from unirec_tpu.models.joint import construct_input_text
-from unirec_tpu.serving.prompt_cache import CachedPromptEncoder
+from unirec.data.tokenizer import HashTokenizer
+from unirec.models.joint import construct_input_text
+from unirec.serving.prompt_cache import CachedPromptEncoder
 
 ITEMS = {
     "a1": {"title": "Hydrating Face Cream"},

@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unirec_tpu.configs import ItemQFormerConfig, QFormerConfig, UserQFormerConfig
-from unirec_tpu.models.item_qformer import ItemQFormer
-from unirec_tpu.models.qformer import (
+from unirec.configs import ItemQFormerConfig, QFormerConfig, UserQFormerConfig
+from unirec.models.item_qformer import ItemQFormer
+from unirec.models.qformer import (
     QFormerLMHeadModel,
     QFormerModel,
     causal_lm_loss,
 )
-from unirec_tpu.models.user_qformer import UserQFormer
+from unirec.models.user_qformer import UserQFormer
 
 TINY = QFormerConfig(
     hidden_size=64,

@@ -3,13 +3,14 @@
 import jax.numpy as jnp
 import numpy as np
 
-from unirec_tpu.ops.quantization import (
+import pytest
+
+from unirec.ops.quantization import (
     dequantize_rows,
     quantize_rows,
     quantized_top_k,
-    retrieve_top_k_int8,
 )
-from unirec_tpu.ops.ranking import top_k_items
+from unirec.ops.ranking import top_k_items
 
 
 def test_quantize_roundtrip_error():
@@ -45,52 +46,46 @@ def test_quantized_ranking_matches_fp32():
     )
 
 
-def test_pallas_int8_retrieval_interpret():
+@pytest.mark.parametrize("k", [1, 7, 32])
+def test_quantized_top_k_matches_numpy_reference(k):
+    """Scores and order equal a float64 numpy scan of the dequantized
+    catalog against the normalized users."""
     rng = np.random.RandomState(2)
-    users = jnp.asarray(rng.randn(10, 32).astype(np.float32))
+    users = rng.randn(10, 32).astype(np.float32)
     catalog = jnp.asarray(rng.randn(300, 32).astype(np.float32))
     q, scales = quantize_rows(catalog)
-    s_ref, i_ref = quantized_top_k(users, q, scales, k=7)
-    s_pl, i_pl = retrieve_top_k_int8(
-        users, q, scales, k=7, block_u=8, block_n=128, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(i_pl), np.asarray(i_ref))
-    np.testing.assert_allclose(np.asarray(s_pl), np.asarray(s_ref), atol=1e-5)
+    s_q, i_q = quantized_top_k(jnp.asarray(users), q, scales, k=k)
+    deq = np.asarray(q, np.float64) * np.asarray(scales, np.float64)[:, None]
+    un = users / np.linalg.norm(users, axis=1, keepdims=True)
+    want = un @ deq.T
+    order = np.argsort(-want, axis=1, kind="stable")[:, :k]
+    np.testing.assert_allclose(
+        np.asarray(s_q), np.take_along_axis(want, order, 1), atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(i_q), order)
 
 
-def test_int8_linear_kernel_matches_xla_dot():
-    """ops/int8_matmul.int8_linear (the fused Pallas W8A8 projection that
-    replaces the pathological XLA int8 dot in serving — BASELINE.md round 3)
-    computes the same quantized matmul as the reference XLA formulation."""
-    import jax
-    import jax.numpy as jnp
-
-    from unirec_tpu.ops.int8_matmul import int8_linear, supports_int8_linear
-
-    assert supports_int8_linear(512, 1024, 512, min_rows=0)
-    assert not supports_int8_linear(500, 1024, 512, min_rows=0)
-    assert not supports_int8_linear(8192, 1024, 512)  # below _MIN_ROWS
-    assert supports_int8_linear(16384, 1024, 512)
-    assert not supports_int8_linear(512, 1000, 512, min_rows=0)
+@pytest.mark.parametrize("m,k,n", [(512, 256, 512), (7, 64, 33)])
+def test_int8_linear_matches_numpy_oracle(m, k, n):
+    """The W8A8 projection (ops/int8_ste, an int8 x int8 -> int32 XLA dot)
+    computes the quantized matmul of a float64 numpy oracle."""
+    from unirec.ops.int8_ste import int8_linear_ste
 
     rng = np.random.RandomState(0)
-    m, k, n = 512, 256, 512
     x = jnp.asarray(rng.randn(m, k).astype(np.float32) * 3.0)
     w = rng.randn(k, n).astype(np.float32) * 0.05
     col = np.maximum(np.abs(w).max(axis=0, keepdims=True), 1e-8)
     ks = (col / 127.0).astype(np.float32)
     kq = np.clip(np.round(w / ks), -127, 127).astype(np.int8)
 
-    got = int8_linear(x, jnp.asarray(kq), jnp.asarray(ks),
-                      out_dtype=jnp.float32, interpret=True)
+    got = int8_linear_ste(x, jnp.asarray(kq), jnp.asarray(ks.reshape(-1)))
 
     x32 = np.asarray(x, np.float64)
     absmax = np.maximum(np.abs(x32).max(axis=-1, keepdims=True), 1e-6)
     rs = absmax / 127.0
     xq = np.clip(np.round(x32 / rs), -127, 127).astype(np.int32)
     want = (xq @ kq.astype(np.int32)) * rs * ks
-    # quantization-bucket ties can flip one int8 level between the kernel's
-    # multiply-by-reciprocal and the oracle's divide; bound by one level
+    # quantization-bucket ties can flip one int8 level between float32 and
+    # the oracle's float64 divide; bound by one level per term
     level = rs * ks  # per (row, col) magnitude of one int8 step
     err = np.abs(np.asarray(got, np.float64) - want)
     assert (err <= 130 * level + 1e-6).all()
@@ -105,7 +100,7 @@ def test_int8_ste_forward_and_gradient():
     import jax
     import jax.numpy as jnp
 
-    from unirec_tpu.ops.int8_ste import _fwd_math, int8_linear_ste
+    from unirec.ops.int8_ste import _fwd_math, int8_linear_ste
 
     rng = np.random.RandomState(0)
     x = jnp.asarray(rng.randn(4, 8).astype(np.float32))

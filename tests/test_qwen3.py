@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unirec_tpu.configs import LoRAConfig, tiny_qwen3_config
-from unirec_tpu.models.qwen3 import (
+from unirec.configs import LoRAConfig, tiny_qwen3_config
+from unirec.models.qwen3 import (
     Qwen3Model,
     last_token_pool,
     mean_pool,
     tp_shardings,
 )
-from unirec_tpu.utils.params import (
+from unirec.utils.params import (
     count_params,
     lora_trainable_mask,
     merge_params,
@@ -34,7 +34,7 @@ def test_parity_vs_hf_transformers():
     torch = pytest.importorskip("torch")
     from transformers import Qwen3Config as HFConfig, Qwen3Model as HFModel
 
-    from unirec_tpu.utils.torch_convert import convert_qwen3
+    from unirec.utils.torch_convert import convert_qwen3
 
     hf_cfg = HFConfig(
         vocab_size=CFG.vocab_size,
@@ -173,8 +173,8 @@ def test_pooling_functions():
 
 def test_tp_sharding_forward(eight_devices):
     """dp=4 x tp=2 mesh: forward under jit with GSPMD-propagated shardings."""
-    from unirec_tpu.configs import MeshConfig
-    from unirec_tpu.parallel.mesh import make_mesh
+    from unirec.configs import MeshConfig
+    from unirec.parallel.mesh import make_mesh
 
     mesh = make_mesh(MeshConfig(dp=4, tp=2))
     model = Qwen3Model(CFG)
@@ -205,7 +205,7 @@ def test_tp_sharding_forward(eight_devices):
 
 def test_param_count_full_size():
     """Production config matches Qwen3-0.6B's ~0.6B params (sanity)."""
-    from unirec_tpu.configs import Qwen3Config
+    from unirec.configs import Qwen3Config
 
     cfg = Qwen3Config()
     # analytic count: embed + layers*(qkvo + qknorm + mlp + 2 ln) + final norm

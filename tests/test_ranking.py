@@ -1,13 +1,13 @@
-"""Ranking ops: rank computation, metrics, full-catalog retrieval kernel."""
+"""Ranking ops: rank computation, metrics, full-catalog retrieval."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from unirec_tpu.ops.losses import info_nce_loss
-from unirec_tpu.ops.ranking import (
+from unirec.ops.losses import info_nce_loss
+from unirec.ops.ranking import (
     rank_of_positive,
     ranking_metrics,
-    retrieve_top_k,
     top_k_items,
 )
 
@@ -76,17 +76,20 @@ def test_top_k_items_xla():
     )
 
 
-def test_retrieve_top_k_pallas_interpret():
-    """Pallas blocked retrieval == XLA top-k (interpret mode on CPU)."""
+@pytest.mark.parametrize("k", [1, 7, 32])
+def test_top_k_items_matches_numpy(k):
+    """Full-catalog retrieval == a float64 numpy cosine scan + argsort."""
     rng = np.random.RandomState(1)
-    users = _embed(rng.randn(10, 32))
-    catalog = _embed(rng.randn(300, 32))
-    s_ref, i_ref = top_k_items(users, catalog, k=7)
-    s_pl, i_pl = retrieve_top_k(
-        users, catalog, k=7, block_u=8, block_n=128, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(i_pl), np.asarray(i_ref))
-    np.testing.assert_allclose(np.asarray(s_pl), np.asarray(s_ref), atol=1e-5)
+    users = rng.randn(10, 32)
+    catalog = rng.randn(300, 32)
+    s, i = top_k_items(_embed(users), _embed(catalog), k=k)
+    un = users / np.linalg.norm(users, axis=1, keepdims=True)
+    cn = catalog / np.linalg.norm(catalog, axis=1, keepdims=True)
+    full = un @ cn.T
+    order = np.argsort(-full, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(np.asarray(i), order)
+    np.testing.assert_allclose(np.asarray(s),
+                               np.take_along_axis(full, order, 1), atol=1e-5)
 
 
 def test_info_nce_matches_manual():
@@ -117,26 +120,21 @@ def test_info_nce_matches_manual():
     np.testing.assert_allclose(loss, np.mean(losses), rtol=1e-5)
 
 
-def test_retrieve_top_k_negative_scores_with_padded_catalog():
-    """Padded catalog rows (cosine 0) must not evict real items whose
-    similarity is negative (code-review r2 finding)."""
-    import jax
-
-    from unirec_tpu.ops.ranking import retrieve_top_k, top_k_items
-
+def test_top_k_items_all_negative_scores():
+    """Items whose similarity is negative everywhere still rank by score
+    (no zero-score filler may take their place)."""
     rng = np.random.RandomState(0)
-    n = 1030  # not a multiple of any block size -> padding in the last block
+    n = 1030
     base = rng.randn(1024).astype(np.float32)
     # catalog anti-aligned with the user -> ALL similarities negative
     catalog = -np.abs(rng.rand(n, 1)).astype(np.float32) * base[None, :]
     catalog += rng.randn(n, 1024).astype(np.float32) * 1e-3
     users = np.tile(base, (4, 1)).astype(np.float32)
 
-    s_ref, i_ref = top_k_items(jnp.asarray(users), jnp.asarray(catalog), k=10)
-    s_p, i_p = retrieve_top_k(
-        jnp.asarray(users), jnp.asarray(catalog), k=10,
-        block_n=256, interpret=True,
-    )
-    assert np.isfinite(np.asarray(s_p)).all()
-    np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_ref))
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_ref), atol=1e-5)
+    s, i = top_k_items(jnp.asarray(users), jnp.asarray(catalog), k=10)
+    s = np.asarray(s)
+    assert np.isfinite(s).all() and (s < 0).all()
+    cn = catalog / np.linalg.norm(catalog, axis=1, keepdims=True)
+    full = (users / np.linalg.norm(users, axis=1, keepdims=True)) @ cn.T
+    np.testing.assert_array_equal(
+        np.asarray(i), np.argsort(-full, axis=1, kind="stable")[:, :10])

@@ -46,7 +46,7 @@ def test_pth_checkpoint_roundtrip(tmp_path):
         ckpt_path,
     )
 
-    from unirec_tpu.inference.qformer_inference import QFormerInference
+    from unirec.inference.qformer_inference import QFormerInference
 
     inf = QFormerInference(ckpt_path, batch_size=8)
     assert inf.field_names == ["a", "b", "c", "d", "e"]
@@ -70,7 +70,7 @@ def test_pth_checkpoint_roundtrip(tmp_path):
 
 
 def test_export_roundtrip_into_reference(tmp_path):
-    """The OTHER direction: a TPU-trained ItemQFormer exports to a
+    """The OTHER direction: a JAX-trained ItemQFormer exports to a
     reference-schema ``best_qformer_model.pth`` that (a) loads STRICT into
     the reference ``QFormerForItemRepresentation`` rebuilt from the pickled
     config exactly as data_processing/qformer_inference.py:29-48 does, with
@@ -80,9 +80,9 @@ def test_export_roundtrip_into_reference(tmp_path):
     import jax.numpy as jnp
 
     from models.qformer_utils import QFormerForItemRepresentation  # oracle
-    from unirec_tpu.configs import ItemQFormerConfig
-    from unirec_tpu.models.item_qformer import ItemQFormer
-    from unirec_tpu.utils.torch_convert import (
+    from unirec.configs import ItemQFormerConfig
+    from unirec.models.item_qformer import ItemQFormer
+    from unirec.utils.torch_convert import (
         load_reference_item_qformer_checkpoint,
         save_reference_item_qformer_checkpoint,
     )
@@ -140,7 +140,7 @@ def test_export_roundtrip_into_reference(tmp_path):
     # the re-imported tree gains the synthesized torch-only leaves (zero
     # word/position tables, zero text FFNs), so compare via a second export:
     # it must reproduce the first state_dict bit-for-bit
-    from unirec_tpu.utils.torch_convert import export_item_qformer
+    from unirec.utils.torch_convert import export_item_qformer
 
     sd1 = export_item_qformer(variables["params"], cfg)
     sd2 = export_item_qformer(vars2["params"], cfg2)
@@ -158,9 +158,9 @@ def test_user_export_loads_strict_into_reference(tmp_path):
     import jax.numpy as jnp
 
     from training.user_qformer_training import UserQFormer as RefUserQFormer
-    from unirec_tpu.configs import UserQFormerConfig
-    from unirec_tpu.models.user_qformer import UserQFormer
-    from unirec_tpu.utils.torch_convert import (
+    from unirec.configs import UserQFormerConfig
+    from unirec.models.user_qformer import UserQFormer
+    from unirec.utils.torch_convert import (
         save_reference_user_qformer_checkpoint,
     )
 
@@ -220,8 +220,8 @@ def test_export_roundtrips_relative_position_and_pooler():
     self-attention (distance_embedding) and the tanh pooler — a torch
     BertModel state_dict with both survives convert -> export bit-for-bit."""
     from models.qformer import BertConfig, BertModel  # reference oracle
-    from unirec_tpu.configs import QFormerConfig
-    from unirec_tpu.utils.torch_convert import (
+    from unirec.configs import QFormerConfig
+    from unirec.utils.torch_convert import (
         convert_qformer_model,
         export_qformer_model,
     )
@@ -268,7 +268,7 @@ def test_mwne_checkpoint_import_matches_reference(tmp_path):
         load_trained_encoder,
     )
 
-    from unirec_tpu.encoders.backends import MWNENumberBackend
+    from unirec.encoders.backends import MWNENumberBackend
 
     torch.manual_seed(3)
     base = ImprovedMathematicalEncoder(
@@ -319,7 +319,7 @@ def test_mwne_checkpoint_import_matches_reference(tmp_path):
 
 
 def test_mwne_export_loads_into_reference(tmp_path):
-    """The OTHER direction: a TPU-trained MWNE exports to a checkpoint the
+    """The OTHER direction: a JAX-trained MWNE exports to a checkpoint the
     reference's ``load_trained_encoder`` consumes directly, with matching
     outputs — and the frequency-grid validation rejects a checkpoint whose
     buffer disagrees with its own config."""
@@ -327,9 +327,9 @@ def test_mwne_export_loads_into_reference(tmp_path):
     import jax.numpy as jnp
 
     from models.mwne import load_trained_encoder  # reference oracle
-    from unirec_tpu.configs import MWNEConfig
-    from unirec_tpu.models.mwne import NormalizedMathematicalEncoder
-    from unirec_tpu.utils.torch_convert import (
+    from unirec.configs import MWNEConfig
+    from unirec.models.mwne import NormalizedMathematicalEncoder
+    from unirec.utils.torch_convert import (
         convert_mwne,
         save_reference_mwne_checkpoint,
     )

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unirec_tpu.configs import MeshConfig
-from unirec_tpu.ops.attention import attention, make_additive_mask
-from unirec_tpu.ops.sharded_attention import sequence_parallel_cross_attention
-from unirec_tpu.parallel.mesh import make_mesh
+from unirec.configs import MeshConfig
+from unirec.ops.attention import attention, make_additive_mask
+from unirec.ops.sharded_attention import sequence_parallel_cross_attention
+from unirec.parallel.mesh import make_mesh
 
 
 @pytest.mark.parametrize("tp", [2, 4])
@@ -56,15 +56,14 @@ def test_user_trainer_sp_step_matches_single_device(eight_devices):
     """`train user --sp N` end-to-end: a dp=2 x sp=4 sequence-parallel train
     step produces the same losses and parameter trajectory as the plain
     single-device trainer (memory axis sharded over 'sp', exact LSE combine
-    + shard_map AD — VERDICT r2 weak #4: the op is now a consumed training
-    path, not an orphan)."""
-    from unirec_tpu.configs import (
+    + shard_map AD: the op is a consumed training path, not an orphan)."""
+    from unirec.configs import (
         MeshConfig,
         OptimizerConfig,
         TrainConfig,
         UserQFormerConfig,
     )
-    from unirec_tpu.train.user_qformer import UserQFormerTrainer
+    from unirec.train.user_qformer import UserQFormerTrainer
 
     def make(mesh_cfg, sp):
         uc = UserQFormerConfig(
@@ -108,12 +107,12 @@ def test_user_trainer_sp_step_matches_single_device(eight_devices):
 
 
 def test_user_trainer_sp_requires_axis(eight_devices):
-    from unirec_tpu.configs import (
+    from unirec.configs import (
         MeshConfig,
         TrainConfig,
         UserQFormerConfig,
     )
-    from unirec_tpu.train.user_qformer import UserQFormerTrainer
+    from unirec.train.user_qformer import UserQFormerTrainer
 
     uc = UserQFormerConfig(
         hidden_size=32, num_hidden_layers=1, num_attention_heads=2,

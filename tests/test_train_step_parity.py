@@ -1,6 +1,6 @@
 """Training-step parity: rebuilt trainers vs the PyTorch reference trainers.
 
-VERDICT r1 #1 — the last unverified correctness axis: identical-init,
+the last unverified correctness axis: identical-init,
 identical-batch ONE-STEP loss + per-leaf gradient comparison, then a
 ~20-step loss-trajectory comparison with matched AdamW hyperparameters,
 for all three training stages:
@@ -62,7 +62,7 @@ from training.user_qformer_training import UserQFormer as RefUserQFormer  # noqa
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from unirec_tpu.configs import (  # noqa: E402
+from unirec.configs import (  # noqa: E402
     ItemQFormerConfig,
     JointModelConfig,
     LoRAConfig,
@@ -72,10 +72,10 @@ from unirec_tpu.configs import (  # noqa: E402
     TrainConfig,
     UserQFormerConfig,
 )
-from unirec_tpu.models.item_qformer import ItemQFormer  # noqa: E402
-from unirec_tpu.models.joint import MultiModalQwenEmbedding  # noqa: E402
-from unirec_tpu.train.common import TrainState, make_optimizer  # noqa: E402
-from unirec_tpu.utils.torch_convert import (  # noqa: E402
+from unirec.models.item_qformer import ItemQFormer  # noqa: E402
+from unirec.models.joint import MultiModalQwenEmbedding  # noqa: E402
+from unirec.train.common import TrainState, make_optimizer  # noqa: E402
+from unirec.utils.torch_convert import (  # noqa: E402
     convert_item_qformer,
     convert_joint_model,
     convert_user_qformer,
@@ -161,7 +161,7 @@ def _torch_item_step(tmodel, criterion, batch):
 
 
 def test_item_trainer_step_and_trajectory_parity():
-    from unirec_tpu.train.item_qformer import make_train_step
+    from unirec.train.item_qformer import make_train_step
 
     torch.manual_seed(10)
     tmodel = QFormerForItemRepresentation(
@@ -235,7 +235,7 @@ def test_item_trainer_step_and_trajectory_parity():
 
 
 def test_user_trainer_step_and_trajectory_parity():
-    from unirec_tpu.train.user_qformer import UserQFormerTrainer
+    from unirec.train.user_qformer import UserQFormerTrainer
 
     k_pred, n_q = 4, K  # predict 4 item tokens; 8 user query tokens
     torch.manual_seed(11)
@@ -440,7 +440,7 @@ def _joint_batch(rng, b=2, seq=32, n_neg=5):
 def test_joint_trainer_step_and_trajectory_parity():
     from transformers import Qwen3Config as HFQwen3Config
 
-    from unirec_tpu.train.joint import (
+    from unirec.train.joint import (
         make_joint_optimizer,
         make_joint_train_step,
     )
@@ -448,7 +448,7 @@ def test_joint_trainer_step_and_trajectory_parity():
     qc = Qwen3Config(
         vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=FFN,
         num_hidden_layers=LAYERS, num_attention_heads=HEADS,
-        num_key_value_heads=2, head_dim=16, flash_attention=False,
+        num_key_value_heads=2, head_dim=16,
     )
     qc_hf = HFQwen3Config(
         vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=FFN,
@@ -558,17 +558,17 @@ def test_joint_trainer_step_and_trajectory_parity():
 def test_joint_export_is_exact_inverse_and_loads_strict():
     """export_joint_model must invert convert_joint_model bit-for-bit on
     the reference MultiModalQwenEmbedding's own PEFT-wrapped state_dict
-    (same key set, same values), so TPU-trained joint checkpoints load
+    (same key set, same values), so JAX-trained joint checkpoints load
     strict into the reference module
     (train_item_individual_token_joint.py:65)."""
     from transformers import Qwen3Config as HFQwen3Config
 
-    from unirec_tpu.utils.torch_convert import export_joint_model
+    from unirec.utils.torch_convert import export_joint_model
 
     qc = Qwen3Config(
         vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=FFN,
         num_hidden_layers=LAYERS, num_attention_heads=HEADS,
-        num_key_value_heads=2, head_dim=16, flash_attention=False,
+        num_key_value_heads=2, head_dim=16,
     )
     qc_hf = HFQwen3Config(
         vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=FFN,
@@ -618,12 +618,12 @@ def test_save_pretrained_directory_loads_via_peft(tmp_path):
     from peft import PeftModel, get_peft_model
     from transformers import Qwen3Config as HFQwen3Config, Qwen3Model
 
-    from unirec_tpu.utils.torch_convert import save_pretrained_directory
+    from unirec.utils.torch_convert import save_pretrained_directory
 
     qc = Qwen3Config(
         vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=FFN,
         num_hidden_layers=LAYERS, num_attention_heads=HEADS,
-        num_key_value_heads=2, head_dim=16, flash_attention=False,
+        num_key_value_heads=2, head_dim=16,
     )
     qc_hf = HFQwen3Config(
         vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=FFN,

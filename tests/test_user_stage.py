@@ -5,21 +5,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unirec_tpu.configs import (
+from unirec.configs import (
     ItemQFormerConfig,
     MeshConfig,
     OptimizerConfig,
     TrainConfig,
     UserQFormerConfig,
 )
-from unirec_tpu.data.cache import FieldEmbeddingCache
-from unirec_tpu.models.item_qformer import ItemQFormer
-from unirec_tpu.models.mwne import sinusoidal_position_encoding
-from unirec_tpu.models.user_sequence import (
+from unirec.data.cache import FieldEmbeddingCache
+from unirec.models.item_qformer import ItemQFormer
+from unirec.models.mwne import sinusoidal_position_encoding
+from unirec.models.user_sequence import (
     UserSequenceModel,
     assemble_user_sequence,
 )
-from unirec_tpu.train.user_qformer import (
+from unirec.train.user_qformer import (
     UserQFormerTrainer,
     build_sliding_window_samples,
     build_timestamp_map,
@@ -123,7 +123,7 @@ def test_user_training_decreases_loss(user_setup, eight_devices):
         optimizer=OptimizerConfig(learning_rate=3e-3), mesh=MeshConfig(dp=8),
     )
     trainer = UserQFormerTrainer(uc, tc, max_seq_len=8)
-    from unirec_tpu.train.user_qformer import (
+    from unirec.train.user_qformer import (
         build_sliding_window_samples as bs,
         build_timestamp_map as bt,
     )
@@ -157,7 +157,7 @@ def test_full_user_driver(user_setup, tmp_path):
         log_fn=lambda *a: None,
     )
     assert np.isfinite(metrics["loss"])
-    from unirec_tpu.utils.checkpoint import load_checkpoint, restore_config
+    from unirec.utils.checkpoint import load_checkpoint, restore_config
 
     tree, meta = load_checkpoint(str(tmp_path / "uq"))
     cfg = restore_config(meta, UserQFormerConfig)
@@ -166,12 +166,12 @@ def test_full_user_driver(user_setup, tmp_path):
 
 
 def test_user_eval_metrics(user_setup, eight_devices):
-    from unirec_tpu.eval.user_eval import (
+    from unirec.eval.user_eval import (
         evaluate_user_qformer,
         retrieval_metrics,
         token_metrics,
     )
-    from unirec_tpu.train.user_qformer import (
+    from unirec.train.user_qformer import (
         build_sliding_window_samples,
         build_timestamp_map,
     )
@@ -210,13 +210,13 @@ def test_user_trainer_bf16_mode():
     """--bf16 plumbing: bf16 activations, fp32 params, finite decreasing loss."""
     import numpy as np
 
-    from unirec_tpu.configs import (
+    from unirec.configs import (
         MeshConfig,
         OptimizerConfig,
         TrainConfig,
         UserQFormerConfig,
     )
-    from unirec_tpu.train.user_qformer import UserQFormerTrainer
+    from unirec.train.user_qformer import UserQFormerTrainer
 
     uc = UserQFormerConfig(
         hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
